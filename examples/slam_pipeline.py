@@ -29,17 +29,17 @@ import numpy as np  # noqa: E402
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-import klt_tpu as klt  # noqa: E402
-from klt_tpu.io.dataset import find_dataset, ImageSequence  # noqa: E402
-from klt_tpu.slam import (tracks_from_table, select_keyframes,  # noqa: E402
+import klt  # noqa: E402
+from klt.io.dataset import find_dataset, ImageSequence  # noqa: E402
+from klt.slam import (tracks_from_table, select_keyframes,  # noqa: E402
                           BAProblem, bundle_adjust, bundle_adjust_cg)
-from klt_tpu.slam.frontend import keyframe_pose_graph_init  # noqa: E402
+from klt.slam.frontend import keyframe_pose_graph_init  # noqa: E402
 
 
 def frontend_device(seq, n_features, n_frames, cfg, chunk):
     """Device-resident front end: chunked compiled scans with in-scan
     replacement (runtime.pipeline.track_sequence_replace)."""
-    from klt_tpu.runtime.pipeline import track_sequence_replace
+    from klt.runtime.pipeline import track_sequence_replace
 
     tracker = klt.KLTracker(cfg)
     fl = klt.FeatureList.create(n_features)
@@ -178,7 +178,7 @@ def main():
 
     mesh = None
     if len(jax.devices()) > 1:
-        from klt_tpu.parallel.mesh import make_mesh
+        from klt.parallel.mesh import make_mesh
         mesh = make_mesh({"data": len(jax.devices())})
 
     t0 = time.perf_counter()

@@ -1,6 +1,6 @@
 """Example driver: select-and-track over a PGM sequence.
 
-The klt_tpu equivalent of the reference's example3
+The klt equivalent of the reference's example3
 (src/V1/example3.c / src/V3/example3GPU.c): selects features on the
 first frame, tracks through the sequence in sequential mode, writes
 feature-table files and PPM overlays.
@@ -19,8 +19,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np  # noqa: E402
 
-import klt_tpu as klt  # noqa: E402
-from klt_tpu.io.dataset import find_dataset, ImageSequence  # noqa: E402
+import klt  # noqa: E402
+from klt.io.dataset import find_dataset, ImageSequence  # noqa: E402
 
 
 def main():

@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from klt_tpu.config import TrackingConfig
-from klt_tpu.ops.convolve import compute_smoothed_image, compute_gradients
-from klt_tpu.ops.pyramid import build_pyramid
+from klt.config import TrackingConfig
+from klt.ops.convolve import compute_smoothed_image, compute_gradients
+from klt.ops.pyramid import build_pyramid
 from conftest import load_f32
 
 

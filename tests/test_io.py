@@ -5,13 +5,13 @@ import os
 import numpy as np
 import pytest
 
-import klt_tpu as klt
-from klt_tpu.features import FeatureList, FeatureHistory, FeatureTable
-from klt_tpu.io.features_io import (write_feature_table, read_feature_table,
+import klt
+from klt.features import FeatureList, FeatureHistory, FeatureTable
+from klt.io.features_io import (write_feature_table, read_feature_table,
                                     write_feature_list, read_feature_list,
                                     write_feature_history,
                                     read_feature_history)
-from klt_tpu.io.pnm import read_pgm, write_pgm, read_ppm, write_ppm
+from klt.io.pnm import read_pgm, write_pgm, read_ppm, write_ppm
 from conftest import REF_GOLDEN
 
 
@@ -125,8 +125,8 @@ def test_checkpoint_resume_via_feature_table(tmp_path):
     src/V1/writeFeatures.c:294-301, src/V1/storeFeatures.c:42-66):
     tracking resumed from a stored frame must match uninterrupted
     tracking bit-for-bit (positions are stored as raw f32)."""
-    import klt_tpu as klt
-    from klt_tpu.config import TrackingConfig
+    import klt
+    from klt.config import TrackingConfig
     from conftest import REF_DATA
     d = os.path.join(REF_DATA, "images_provided")
     if not os.path.isdir(d):
@@ -165,7 +165,7 @@ def test_detection_epochs_and_same_detection_parity():
     the same-detection drift metric excludes slots whose runs picked
     different replacement features."""
     import numpy as np
-    from klt_tpu.utils.parity import detection_epochs, table_parity_stats
+    from klt.utils.parity import detection_epochs, table_parity_stats
 
     # slot 0: tracked throughout; slot 1: replaced at t=2 (same pick);
     # slot 2: replaced at t=2 with DIFFERENT picks in the two runs
@@ -193,7 +193,7 @@ def test_detection_epochs_and_same_detection_parity():
 
 def test_pad_features_for_mesh_dead_lanes():
     import numpy as np
-    from klt_tpu.parallel.batch import pad_features_for_mesh
+    from klt.parallel.batch import pad_features_for_mesh
     x = np.ones((2, 5), np.float32)
     y = np.ones((2, 5), np.float32)
     v = np.zeros((2, 5), np.int32)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from klt_tpu.kernels import gaussian_kernels, kernel_widths
+from klt.kernels import gaussian_kernels, kernel_widths
 from conftest import load_f32
 
 
@@ -66,11 +66,11 @@ def test_div_cr_correctly_rounded():
     """ops.lk_exact._div_cr must produce the correctly-rounded f32
     quotient (= what C scalar division gives).  On CPU the hardware
     divide is already correctly rounded, so this doubles as a
-    no-perturbation regression; on TPU it is the fix for the
-    faithfully-but-not-correctly-rounded divide."""
+    no-perturbation regression; on a device with a faithfully-but-not-
+    correctly-rounded divide it is the fix."""
     import jax
     import jax.numpy as jnp
-    from klt_tpu.ops.lk_exact import _div_cr
+    from klt.ops.lk_exact import _div_cr
 
     rng = np.random.RandomState(5)
     a = (rng.uniform(-1e6, 1e6, 20000)).astype(np.float32)

@@ -1,13 +1,11 @@
-"""Pallas kernel logic tests (interpret mode, CPU).
+"""The LK level kernel (klt/pallas/lk.py) on the CPU.
 
-The fused pyramid and LK level kernels normally run only on TPU; with
-KLT_TPU_PALLAS_INTERPRET=1 they execute through the Pallas interpreter,
-letting CI validate the kernel logic against the jnp oracles without
-hardware.  (On-TPU numerical equivalence is additionally verified by
-bench.py's golden comparison.)
+The kernel runs through the Pallas interpreter (the wrapper's explicit
+`interpret` argument) against the per-iteration gather oracle
+(ops.lk._track_level_gather) on seeded synthetic level stacks.  The
+compiled kernel is checked on the card by chip_smoke.py (phase 1) and by
+the `gpu`-marked test below.
 """
-
-import os
 
 import numpy as np
 import pytest
@@ -15,400 +13,167 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from klt_tpu.config import TrackingConfig
-from conftest import REF_DATA
+from klt.config import TrackingConfig, OOB, TRACKED
+from klt.io.synthetic import translated_sequence
+from klt.ops.pyramid import build_pyramid_stacks
 
 
-@pytest.fixture()
-def interpret_pallas(monkeypatch):
-    from klt_tpu.pallas import pyramid as pp
-    from klt_tpu.pallas import lk as pk
-    monkeypatch.setenv("KLT_TPU_PALLAS_INTERPRET", "1")
-    monkeypatch.delenv("KLT_TPU_NO_PALLAS", raising=False)
-    pp._fused_call.cache_clear()
-    pk._inner_call.cache_clear()
-    yield
-    pp._fused_call.cache_clear()
-    pk._inner_call.cache_clear()
+def _stacks(cfg, seed, gain=1.0, h=120, w=160):
+    frames, _ = translated_sequence(2, h, w, seed)
+    f2 = np.clip(frames[1] * gain + 6.0 * (gain != 1.0), 0, 255)
+    s1 = build_pyramid_stacks(jnp.asarray(frames[0]), cfg)[0]
+    s2 = build_pyramid_stacks(jnp.asarray(f2.astype(np.uint8)), cfg)[0]
+    return s1, s2
 
 
-def _oracle_pyramids(img, cfg, monkeypatch):
-    from klt_tpu.ops.pyramid import build_image_pyramids
-    monkeypatch.setenv("KLT_TPU_NO_PALLAS", "1")
-    out = jax.jit(lambda im: build_image_pyramids(im, cfg))(img)
-    monkeypatch.delenv("KLT_TPU_NO_PALLAS")
-    return out
+def _lanes(n, h, w, seed):
+    """Positions over the whole level and a 4 px band outside it (border
+    and OOB lanes), with ~10% inactive lanes."""
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(-4, w + 4, n).astype(np.float32)
+    y = rng.uniform(-4, h + 4, n).astype(np.float32)
+    act = rng.rand(n) > 0.1
+    return jnp.asarray(x), jnp.asarray(y), jnp.asarray(act)
 
 
-def test_fused_pyramid_matches_oracle(provided_frames, interpret_pallas,
-                                      monkeypatch):
-    from klt_tpu.pallas.pyramid import fused_build_image_pyramids
-    cfg = TrackingConfig()
-    img = jnp.asarray(provided_frames[0])
-    ref = _oracle_pyramids(img, cfg, monkeypatch)
-    out = jax.jit(lambda im: fused_build_image_pyramids(im, cfg))(img)
-    for rs, os_ in zip(ref, out):
-        for a, b in zip(rs, os_):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       atol=2e-4)
+def _oracle(s1, s2, x, y, act, cfg):
+    from klt.ops.lk import _track_level_gather
+    return jax.jit(_track_level_gather, static_argnums=7)(
+        s1, s2, x, y, x, y, act, cfg)
 
 
-def test_batched_pyramid_kernel_bit_equal(provided_frames,
-                                          interpret_pallas,
-                                          monkeypatch):
-    """The natively-batched pyramid kernel must match the single-image
-    kernel per image — including a multi-tile grid.  Interpret mode
-    executes through XLA:CPU, whose conv-chain codegen is
-    shape-dependent at the ulp level, so this asserts tight allclose;
-    the real-chip check (tools/check_batched_pyr.py) asserts BIT
-    equality (measured: 0 mismatches at B=32)."""
-    from klt_tpu.pallas import pyramid as pp
-    pp._fused_call_batched.cache_clear()
-    cfg = TrackingConfig()
-    imgs = jnp.asarray(np.stack(provided_frames[:3]))
-    assert pp.supported_batched(imgs.shape, cfg)
-    outs = jax.jit(
-        lambda im: pp.fused_build_pyramid_stacks_batched(im, cfg))(imgs)
-    refs = [jax.jit(lambda im: pp.fused_build_pyramid_stacks(
-        im, cfg))(imgs[b]) for b in range(3)]
-
-    def check(outs):
-        for b in range(3):
-            for r, o in zip(refs[b], outs):
-                np.testing.assert_allclose(np.asarray(r),
-                                           np.asarray(o[b]),
-                                           atol=1e-4, rtol=1e-5)
-
-    check(outs)
-    # multi-tile grid: force a 1-image tile so the index_map walks
-    h, w = imgs.shape[1], imgs.shape[2]
-    monkeypatch.setattr(pp, "_VMEM_BUDGET_BYTES",
-                        pp._LIVE_BUFFERS_BATCHED * h * w * 4)
-    pp._fused_call_batched.cache_clear()
-    assert pp.batch_tile(3, h, w) == 1
-    check(jax.jit(
-        lambda im: pp.fused_build_pyramid_stacks_batched(im, cfg))(imgs))
-    pp._fused_call_batched.cache_clear()
+def _assert_matches(out, ref):
+    ox, oy, os_, oi = (np.asarray(a) for a in out)
+    rx, ry, rs, ri = (np.asarray(a) for a in ref)
+    np.testing.assert_array_equal(os_, rs)
+    np.testing.assert_array_equal(oi, ri)
+    np.testing.assert_allclose(ox, rx, atol=1e-3)
+    np.testing.assert_allclose(oy, ry, atol=1e-3)
 
 
-def test_lk_kernel_matches_gather_oracle(provided_frames, interpret_pallas,
-                                         monkeypatch):
-    import klt_tpu.ops.lk as LK
-    cfg = TrackingConfig()
-    img0 = np.asarray(provided_frames[0])
-    # subpixel-translated second frame: a well-conditioned LK problem
-    # where both implementations must converge identically (chaotic
-    # far-displacement lanes are covered by the golden pipeline tests)
-    img1 = np.roll(img0, (1, 2), axis=(0, 1))
-    p0 = _oracle_pyramids(jnp.asarray(img0), cfg, monkeypatch)
-    p1 = _oracle_pyramids(jnp.asarray(img1), cfg, monkeypatch)
-
-    rng = np.random.RandomState(3)
-    n = 64
-    for lev in (0, 1):
-        s = cfg.subsampling ** lev
-        s1 = jnp.stack([p0[0][lev], p0[1][lev], p0[2][lev]])
-        s2 = jnp.stack([p1[0][lev], p1[1][lev], p1[2][lev]])
-        h, w = s1.shape[-2], s1.shape[-1]
-        x = jnp.asarray(rng.uniform(25 / s, w - 25 / s, n)
-                        .astype(np.float32))
-        y = jnp.asarray(rng.uniform(25 / s, h - 25 / s, n)
-                        .astype(np.float32))
-        act = jnp.asarray(rng.rand(n) > 0.1)
-
-        ref = jax.jit(lambda *a: LK._track_level_gather(*a, cfg))(
-            s1, s2, x, y, x, y, act)
-        out = jax.jit(lambda *a: LK._track_level_kernel(*a, cfg))(
-            s1, s2, x, y, x, y, act)
-        rx, ry, rs = (np.asarray(t) for t in ref[:3])
-        ox, oy, os_ = (np.asarray(t) for t in out[:3])
-        assert (rs == os_).mean() >= 0.98
-        both = (rs == 0) & (os_ == 0)
-        np.testing.assert_allclose(rx[both], ox[both], atol=1e-3)
-        np.testing.assert_allclose(ry[both], oy[both], atol=1e-3)
-
-
-def test_stall_compaction_bit_exact(provided_frames, interpret_pallas,
-                                    monkeypatch):
-    """The re-anchor tail's stall-compaction (gather stragglers into an
-    M-wide state) must be bit-identical to full-width tail rounds."""
-    import klt_tpu.ops.lk as LK
-    cfg = TrackingConfig()
-    img0 = np.asarray(provided_frames[0])
-    img1 = np.asarray(provided_frames[1])
-    p0 = _oracle_pyramids(jnp.asarray(img0), cfg, monkeypatch)
-    p1 = _oracle_pyramids(jnp.asarray(img1), cfg, monkeypatch)
-    s1 = jnp.stack([p0[0][0], p0[1][0], p0[2][0]])
-    s2 = jnp.stack([p1[0][0], p1[1][0], p1[2][0]])
-    h, w = s1.shape[-2], s1.shape[-1]
-
-    rng = np.random.RandomState(11)
-    n = 640  # >= the default compaction threshold (512)
-    x = jnp.asarray(rng.uniform(15, w - 15, n).astype(np.float32))
-    y = jnp.asarray(rng.uniform(15, h - 15, n).astype(np.float32))
-    act = jnp.asarray(rng.rand(n) > 0.05)
-
-    monkeypatch.setenv("KLT_TPU_STALL_COMPACT", "0")
-    ref = jax.jit(lambda *a: LK._track_level_kernel(*a, cfg))(
-        s1, s2, x, y, x, y, act)
-    monkeypatch.setenv("KLT_TPU_STALL_COMPACT", "1")
-    out = jax.jit(lambda *a: LK._track_level_kernel(*a, cfg))(
-        s1, s2, x, y, x, y, act)
-    for r, o in zip(ref, out):
-        np.testing.assert_array_equal(np.asarray(r), np.asarray(o))
-
-    # the compacted tail must extract through the round's own backend:
-    # with KLT_TPU_EXTRACT=ds2 the kernel is built channel-major, and a
-    # hardcoded row-major extract_flat in the tail fed it garbage
-    # (regression: caught by review, fixed by reusing extract2)
-    monkeypatch.setenv("KLT_TPU_EXTRACT", "ds2")
-    monkeypatch.setenv("KLT_TPU_STALL_COMPACT", "0")
-    ref2 = jax.jit(lambda *a: LK._track_level_kernel(*a, cfg))(
-        s1, s2, x, y, x, y, act)
-    monkeypatch.setenv("KLT_TPU_STALL_COMPACT", "1")
-    out2 = jax.jit(lambda *a: LK._track_level_kernel(*a, cfg))(
-        s1, s2, x, y, x, y, act)
-    for r, o in zip(ref2, out2):
-        np.testing.assert_array_equal(np.asarray(r), np.asarray(o))
-    # and ds2 itself must agree with the default backend bit-for-bit
-    for r, o in zip(ref, ref2):
-        np.testing.assert_array_equal(np.asarray(r), np.asarray(o))
-
-    # KLT_TPU_ITER_CAP: capping the first full-width launch and
-    # finishing stragglers in the compacted tail is a forced stall —
-    # must be bit-identical to the uncapped run for every cap value
-    monkeypatch.delenv("KLT_TPU_EXTRACT", raising=False)
-    for cap in (1, 5):
-        monkeypatch.setenv("KLT_TPU_ITER_CAP", str(cap))
-        outc = jax.jit(lambda *a: LK._track_level_kernel(*a, cfg))(
-            s1, s2, x, y, x, y, act)
-        for r, o in zip(ref, outc):
-            np.testing.assert_array_equal(np.asarray(r), np.asarray(o))
-
-
-@pytest.mark.slow
-def test_lk2_channel_major_layout_matches(provided_frames, monkeypatch):
-    """The v2 kernel's channel-major ('cr') lane layout — used by the
-    KLT_TPU_EXTRACT=ds2 block-gather variant — must match the default
-    canvas layout bit-for-bit."""
-    import jax.numpy as jnp
-    import klt_tpu.ops.lk as L
-    from klt_tpu.config import TrackingConfig
-    from klt_tpu.ops.pyramid import build_image_pyramids
-
-    monkeypatch.setenv("KLT_TPU_PALLAS_INTERPRET", "1")
-    cfg = TrackingConfig()
-    p1 = build_image_pyramids(jnp.asarray(provided_frames[0]), cfg)
-    p2 = build_image_pyramids(jnp.asarray(provided_frames[1]), cfg)
-    import klt_tpu as klt
-    fl = klt.FeatureList.create(48)
-    tr = klt.KLTracker(TrackingConfig())
-    tr.select_good_features(provided_frames[0], fl)
-    args = (list(p1[0]), list(p1[1]), list(p1[2]),
-            list(p2[0]), list(p2[1]), list(p2[2]),
-            jnp.asarray(fl.x), jnp.asarray(fl.y), jnp.asarray(fl.val),
-            cfg)
-    outs = {}
-    for mode in ("onehot", "ds2"):
-        monkeypatch.setenv("KLT_TPU_EXTRACT", mode)
-        x, y, v = L.track_features_pyramid(*args)
-        outs[mode] = (np.asarray(x), np.asarray(y), np.asarray(v))
-    a, b = outs["onehot"], outs["ds2"]
-    np.testing.assert_array_equal(a[2], b[2])
-    np.testing.assert_array_equal(a[0], b[0])
-    np.testing.assert_array_equal(a[1], b[1])
-
-
-@pytest.mark.slow
-def test_lk2_multi_block_features(provided_frames, monkeypatch):
-    """F > FEATURE_BLOCK exercises the v2 kernel's grid padding /
-    multi-block path; must match the single-call jnp oracle."""
-    import jax.numpy as jnp
-    import klt_tpu.ops.lk as L
-    from klt_tpu.config import TrackingConfig
-    from klt_tpu.ops.pyramid import build_image_pyramids
-
-    monkeypatch.setenv("KLT_TPU_PALLAS_INTERPRET", "1")
-    cfg = TrackingConfig()
-    p1 = build_image_pyramids(jnp.asarray(provided_frames[0]), cfg)
-    p2 = build_image_pyramids(jnp.asarray(provided_frames[1]), cfg)
-    rng = np.random.RandomState(3)
-    n = 600  # spans two FEATURE_BLOCK=512 grid blocks with padding
-    x = jnp.asarray(rng.uniform(20, 300, n).astype(np.float32))
-    y = jnp.asarray(rng.uniform(20, 220, n).astype(np.float32))
-    v = jnp.zeros(n, jnp.int32)
-    args = (list(p1[0]), list(p1[1]), list(p1[2]),
-            list(p2[0]), list(p2[1]), list(p2[2]), x, y, v, cfg)
-    xk, yk, vk = L.track_features_pyramid(*args)
-
-    monkeypatch.setenv("KLT_TPU_NO_PALLAS", "1")
-    xo, yo, vo = L.track_features_pyramid(*args)
-    agree = (np.asarray(vk) == np.asarray(vo)).mean()
-    assert agree >= 0.99, f"status agreement {agree}"
-    both = (np.asarray(vk) >= 0) & (np.asarray(vo) >= 0)
-    d = np.hypot(np.asarray(xk) - np.asarray(xo),
-                 np.asarray(yk) - np.asarray(yo))[both]
-    if len(d):
-        assert d.max() < 1e-2, f"drift {d.max()}"
-
-
-# The whole geometry/lighting/pyramid fuzz matrix is slow-gated
-# (--runslow / KLT_TPU_SLOW_TESTS=1): default-geometry kernel
-# correctness is covered by the oracle/equality/golden tests above,
-# and the matrices' per-case cost doubled once the carry paths joined
-# the interpret-mode compiles.
-def test_iter_cap_gating(monkeypatch):
-    """The first-launch iteration cap must engage ONLY when the
-    compacted tail is active — a forced stall without it costs a
-    full-width round (slower, though still bit-exact)."""
-    from klt_tpu.ops.lk import (_first_round_iter_cap,
-                                _tail_compact_enabled)
-    monkeypatch.setenv("KLT_TPU_ITER_CAP", "5")
-    assert _first_round_iter_cap(True) == 5
-    assert _first_round_iter_cap(False) == 0
-    monkeypatch.delenv("KLT_TPU_ITER_CAP", raising=False)
-    assert _first_round_iter_cap(True) == 0
-    # cap + short canvas is a refused combination (r4: measured
-    # bit-exactness interaction at cap=1, rows=10)
-    monkeypatch.setenv("KLT_TPU_ITER_CAP", "5")
-    monkeypatch.setenv("KLT_TPU_P2_ROWS", "10")
-    assert _first_round_iter_cap(True) == 0
-    monkeypatch.delenv("KLT_TPU_P2_ROWS", raising=False)
-    monkeypatch.delenv("KLT_TPU_ITER_CAP", raising=False)
-    # tail compaction needs the v2 kernel and enough lanes
-    assert not _tail_compact_enabled(150, True)
-    assert _tail_compact_enabled(512, True)
-    assert not _tail_compact_enabled(4096, False)
-    monkeypatch.setenv("KLT_TPU_STALL_COMPACT", "0")
-    assert not _tail_compact_enabled(4096, True)
-
-
-def test_lk2_geometry_hazard_case(provided_frames, monkeypatch):
-    """FAST-GATE representative of the window-geometry matrix: 9x9 is
-    the geometry whose reduce-tree span historically WRAPPED the lane
-    canvas (the 576-lane slice bug) — the one case that must never
-    leave the default suite."""
-    _run_geometry_case(provided_frames, monkeypatch, 9, 9)
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("ww,wh", [(5, 5), (9, 9), (7, 9), (9, 5),
-                                   (5, 9), (11, 11), (13, 13)])
-def test_lk2_window_geometry_fuzz(provided_frames, monkeypatch, ww, wh):
-    """The v2 flattened-lane kernel's roll/wrap geometry must hold for
-    every window size the config system allows (the wrap-safety margin
-    is derived per config by lk2.supported; sizes it rejects must fall
-    back cleanly)."""
-    _run_geometry_case(provided_frames, monkeypatch, ww, wh)
-
-
-def _run_geometry_case(provided_frames, monkeypatch, ww, wh):
-    import jax.numpy as jnp
-    import klt_tpu.ops.lk as L
-    from klt_tpu.config import TrackingConfig
-    from klt_tpu.ops.pyramid import build_image_pyramids
-
-    monkeypatch.setenv("KLT_TPU_PALLAS_INTERPRET", "1")
-    cfg = TrackingConfig(window_width=ww, window_height=wh)
-    p1 = build_image_pyramids(jnp.asarray(provided_frames[0]), cfg)
-    p2 = build_image_pyramids(jnp.asarray(provided_frames[1]), cfg)
-    rng = np.random.RandomState(ww * 100 + wh)
-    n = 64
-    x = jnp.asarray(rng.uniform(25, 295, n).astype(np.float32))
-    y = jnp.asarray(rng.uniform(25, 215, n).astype(np.float32))
-    v = jnp.zeros(n, jnp.int32)
-    args = (list(p1[0]), list(p1[1]), list(p1[2]),
-            list(p2[0]), list(p2[1]), list(p2[2]), x, y, v, cfg)
-    xk, yk, vk = L.track_features_pyramid(*args)
-
-    monkeypatch.setenv("KLT_TPU_NO_PALLAS", "1")
-    xo, yo, vo = L.track_features_pyramid(*args)
-    agree = (np.asarray(vk) == np.asarray(vo)).mean()
-    assert agree >= 0.98, f"status agreement {agree}"
-    both = (np.asarray(vk) >= 0) & (np.asarray(vo) >= 0)
-    d = np.hypot(np.asarray(xk) - np.asarray(xo),
-                 np.asarray(yk) - np.asarray(yo))[both]
-    if len(d):
-        assert d.max() < 5e-2, f"drift {d.max()}"
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("sr", [5, 30, 60])
-def test_lk2_pyramid_config_fuzz(provided_frames, monkeypatch, sr):
-    """search_range-derived pyramid variants (1-level, 2-level/ss4,
-    3-level/ss8) through the kernel path vs the no-Pallas oracle."""
-    _run_pyramid_config_case(provided_frames, monkeypatch, sr)
-
-
-def test_lk2_pyramid_config_fast_case(provided_frames, monkeypatch):
-    """FAST-GATE representative of the pyramid-config matrix: the
-    1-level variant exercises the kernel's non-default level dispatch
-    without the multi-level compile cost."""
-    _run_pyramid_config_case(provided_frames, monkeypatch, 5)
-
-
-def _run_pyramid_config_case(provided_frames, monkeypatch, sr):
-    import jax.numpy as jnp
-    import klt_tpu.ops.lk as L
-    from klt_tpu.config import TrackingConfig
-    from klt_tpu.ops.pyramid import build_image_pyramids
-
-    monkeypatch.setenv("KLT_TPU_PALLAS_INTERPRET", "1")
-    cfg = TrackingConfig(search_range=sr)
-    p1 = build_image_pyramids(jnp.asarray(provided_frames[0]), cfg)
-    p2 = build_image_pyramids(jnp.asarray(provided_frames[1]), cfg)
-    rng = np.random.RandomState(sr)
-    n = 48
-    x = jnp.asarray(rng.uniform(60, 260, n).astype(np.float32))
-    y = jnp.asarray(rng.uniform(60, 180, n).astype(np.float32))
-    v = jnp.zeros(n, jnp.int32)
-    args = (list(p1[0]), list(p1[1]), list(p1[2]),
-            list(p2[0]), list(p2[1]), list(p2[2]), x, y, v, cfg)
-    xk, yk, vk = L.track_features_pyramid(*args)
-    monkeypatch.setenv("KLT_TPU_NO_PALLAS", "1")
-    xo, yo, vo = L.track_features_pyramid(*args)
-    agree = (np.asarray(vk) == np.asarray(vo)).mean()
-    assert agree >= 0.97, f"status agreement {agree}"
-    both = (np.asarray(vk) >= 0) & (np.asarray(vo) >= 0)
-    d = np.hypot(np.asarray(xk) - np.asarray(xo),
-                 np.asarray(yk) - np.asarray(yo))[both]
-    if len(d):
-        assert d.max() < 5e-2, f"drift {d.max()}"
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("ww,wh", [(7, 7), (9, 5)])
-def test_lk2_lighting_geometry_fuzz(provided_frames, monkeypatch,
-                                    ww, wh):
-    """Lighting-insensitive kernel branch across window geometries vs
-    the no-Pallas oracle."""
-    import jax.numpy as jnp
-    import klt_tpu.ops.lk as L
-    from klt_tpu.config import TrackingConfig
-    from klt_tpu.ops.pyramid import build_image_pyramids
-
-    monkeypatch.setenv("KLT_TPU_PALLAS_INTERPRET", "1")
+@pytest.mark.parametrize("n", [1, 150, 1000])
+@pytest.mark.parametrize("lighting", [False, True])
+@pytest.mark.parametrize("ww,wh", [(5, 5), (7, 7), (9, 9), (7, 9)])
+def test_kernel_matches_gather_oracle(ww, wh, lighting, n):
+    """Kernel vs oracle: statuses and iteration counts equal, positions
+    within 1e-3 px (window sums run in another order).  Every case has
+    border/OOB lanes and inactive lanes, and F is not a multiple of the
+    feature block."""
+    from klt.pallas.lk import track_level_lanes
     cfg = TrackingConfig(window_width=ww, window_height=wh,
-                         lighting_insensitive=True)
-    # brightness-scaled second frame exercises the gain/bias path
-    f2 = np.clip(provided_frames[1].astype(np.float32) * 1.15 + 6.0,
-                 0, 255).astype(np.uint8)
-    p1 = build_image_pyramids(jnp.asarray(provided_frames[0]), cfg)
-    p2 = build_image_pyramids(jnp.asarray(f2), cfg)
-    rng = np.random.RandomState(ww + wh)
-    n = 48
-    x = jnp.asarray(rng.uniform(30, 290, n).astype(np.float32))
-    y = jnp.asarray(rng.uniform(30, 210, n).astype(np.float32))
-    v = jnp.zeros(n, jnp.int32)
-    args = (list(p1[0]), list(p1[1]), list(p1[2]),
-            list(p2[0]), list(p2[1]), list(p2[2]), x, y, v, cfg)
-    xk, yk, vk = L.track_features_pyramid(*args)
-    monkeypatch.setenv("KLT_TPU_NO_PALLAS", "1")
-    xo, yo, vo = L.track_features_pyramid(*args)
-    agree = (np.asarray(vk) == np.asarray(vo)).mean()
-    assert agree >= 0.97, f"status agreement {agree}"
-    both = (np.asarray(vk) >= 0) & (np.asarray(vo) >= 0)
-    d = np.hypot(np.asarray(xk) - np.asarray(xo),
-                 np.asarray(yk) - np.asarray(yo))[both]
-    if len(d):
-        assert d.max() < 5e-2, f"drift {d.max()}"
+                         lighting_insensitive=lighting)
+    s1, s2 = _stacks(cfg, seed=ww * 10 + wh,
+                     gain=1.15 if lighting else 1.0)
+    x, y, act = _lanes(n, s1.shape[1], s1.shape[2], seed=n)
+    out = track_level_lanes(s1[None], s2[None], x, y, x, y, act,
+                            jnp.zeros(n, jnp.int32), cfg=cfg,
+                            interpret=True)
+    ref = _oracle(s1, s2, x, y, act, cfg)
+    _assert_matches(out, ref)
+    st = np.asarray(out[2])
+    if n >= 150:  # the lane mix really covers every branch
+        assert (st == OOB).any() and (st == TRACKED).any()
+        assert (np.asarray(act) == 0).any()
+
+
+def test_kernel_inactive_lanes_pass_through():
+    from klt.pallas.lk import track_level_lanes
+    cfg = TrackingConfig()
+    s1, s2 = _stacks(cfg, seed=5)
+    x, y, _ = _lanes(40, s1.shape[1], s1.shape[2], seed=2)
+    act = jnp.zeros(40, bool)
+    out = track_level_lanes(s1[None], s2[None], x, y, x + 1.0, y - 1.0,
+                            act, jnp.zeros(40, jnp.int32), cfg=cfg,
+                            interpret=True)
+    np.testing.assert_array_equal(np.asarray(out[0]), np.asarray(x + 1.0))
+    np.testing.assert_array_equal(np.asarray(out[1]), np.asarray(y - 1.0))
+    assert (np.asarray(out[2]) == TRACKED).all()
+    assert (np.asarray(out[3]) == 0).all()
+
+
+def test_kernel_sequence_index_matches_per_sequence_calls():
+    """One launch over lanes of S sequences (per-lane sequence index into
+    [S, 3, H, W]) equals S single-sequence launches, bit for bit."""
+    from klt.pallas.lk import track_level_lanes
+    cfg = TrackingConfig()
+    pairs = [_stacks(cfg, seed=s) for s in (11, 12, 13)]
+    st1 = jnp.stack([p[0] for p in pairs])
+    st2 = jnp.stack([p[1] for p in pairs])
+    n = 70
+    lanes = [_lanes(n, st1.shape[2], st1.shape[3], seed=s)
+             for s in range(3)]
+    cat = [jnp.concatenate([ln[k] for ln in lanes]) for k in range(3)]
+    seq = jnp.repeat(jnp.arange(3, dtype=jnp.int32), n)
+    out = track_level_lanes(st1, st2, cat[0], cat[1], cat[0], cat[1],
+                            cat[2], seq, cfg=cfg, interpret=True)
+    for s, (x, y, act) in enumerate(lanes):
+        one = track_level_lanes(st1[s][None], st2[s][None], x, y, x, y,
+                                act, jnp.zeros(n, jnp.int32), cfg=cfg,
+                                interpret=True)
+        for a, b in zip(out, one):
+            np.testing.assert_array_equal(np.asarray(a)[s * n:(s + 1) * n],
+                                          np.asarray(b))
+
+
+@pytest.mark.parametrize("ww,wh,fb", [(7, 7, 32), (9, 9, 8), (7, 9, 16),
+                                      (3, 3, 128)])
+def test_feature_block_follows_window(ww, wh, fb):
+    from klt.pallas.lk import feature_block
+    assert feature_block(TrackingConfig(window_width=ww,
+                                        window_height=wh)) == fb
+
+
+def test_dispatch_takes_plain_path_on_cpu(monkeypatch):
+    """On the CPU the level drivers never call the kernel; with the
+    kernel enabled, the single and batched drivers route every level
+    through it (the batched one with per-lane sequence indices)."""
+    import klt.ops.lk as LK
+    import klt.parallel.batched_lk as BL
+    from klt import pallas
+    assert not pallas.lk_kernel_enabled()
+
+    def boom(*a, **k):
+        raise AssertionError("kernel called on the CPU")
+
+    monkeypatch.setattr(LK, "track_level_lanes", boom)
+    monkeypatch.setattr(BL, "track_level_lanes", boom)
+    cfg = TrackingConfig()
+    s1, s2 = _stacks(cfg, seed=3)
+    x, y, act = _lanes(20, s1.shape[1], s1.shape[2], seed=1)
+    LK.track_level(s1, s2, x, y, x, y, act, cfg)
+    BL.track_level_batched(s1[None], s2[None], x[None], y[None],
+                           x[None], y[None], act[None], cfg)
+
+    calls = []
+
+    def spy(st1, st2, x1, y1, x2, y2, active, seq, cfg):
+        calls.append((st1.shape, x1.shape, np.asarray(seq)))
+        z = jnp.zeros(x1.shape, jnp.int32)
+        return x2, y2, z, z
+
+    monkeypatch.setattr(LK, "lk_kernel_enabled", lambda: True)
+    monkeypatch.setattr(BL, "lk_kernel_enabled", lambda: True)
+    monkeypatch.setattr(LK, "track_level_lanes", spy)
+    monkeypatch.setattr(BL, "track_level_lanes", spy)
+    LK.track_level(s1, s2, x, y, x, y, act, cfg)
+    assert calls[-1][0] == (1,) + s1.shape and calls[-1][1] == (20,)
+    b2 = jnp.stack([s1, s1])
+    BL.track_level_batched(b2, b2, jnp.stack([x, x]), jnp.stack([y, y]),
+                           jnp.stack([x, x]), jnp.stack([y, y]),
+                           jnp.stack([act, act]), cfg)
+    assert calls[-1][0] == b2.shape and calls[-1][1] == (40,)
+    np.testing.assert_array_equal(calls[-1][2], np.repeat([0, 1], 20))
+
+
+@pytest.mark.gpu
+def test_kernel_compiled_on_gpu_matches_gather(gpu_device):
+    """The compiled (not interpreted) kernel against the oracle."""
+    from klt.pallas.lk import track_level_lanes
+    cfg = TrackingConfig()
+    with jax.default_device(gpu_device):
+        s1, s2 = _stacks(cfg, seed=9, h=240, w=320)
+        x, y, act = _lanes(1000, 240, 320, seed=4)
+        out = track_level_lanes(s1[None], s2[None], x, y, x, y, act,
+                                jnp.zeros(1000, jnp.int32), cfg=cfg)
+        ref = _oracle(s1, s2, x, y, act, cfg)
+    _assert_matches(out, ref)

@@ -7,9 +7,8 @@ import pytest
 
 import jax
 
-import klt_tpu as klt
-from klt_tpu.parallel import make_mesh, make_batch_step, make_pair_step
-from conftest import load_xyv
+import klt
+from klt.parallel import make_mesh, make_batch_step, make_pair_step
 
 
 @pytest.fixture(scope="module")
@@ -28,16 +27,23 @@ def test_make_mesh_shapes(devices8):
         make_mesh({"data": 3})
 
 
-def test_batched_step_matches_single(provided_frames):
-    """vmapped batch step == per-sequence step."""
+def _seeded(frames, n, cfg):
+    fl = klt.FeatureList.create(n)
+    klt.KLTracker(cfg).select_good_features(frames[0], fl)
+    return fl.x, fl.y, fl.val
+
+
+def test_batched_step_matches_single(synthetic_frames):
+    """Batched step == per-sequence step."""
     cfg = klt.TrackingConfig()
-    ox, oy, ov = load_xyv("select_img0.xyv")
+    frames = synthetic_frames[0]
     n = 64
-    x = np.stack([ox[:n], ox[:n] + 1.0]).astype(np.float32)
-    y = np.stack([oy[:n], oy[:n]]).astype(np.float32)
-    v = np.stack([ov[:n], ov[:n]]).astype(np.int32)
-    img1 = np.stack([provided_frames[0], provided_frames[1]])
-    img2 = np.stack([provided_frames[1], provided_frames[2]])
+    ox, oy, ov = _seeded(frames, n, cfg)
+    x = np.stack([ox, ox + 1.0]).astype(np.float32)
+    y = np.stack([oy, oy]).astype(np.float32)
+    v = np.stack([ov, ov]).astype(np.int32)
+    img1 = np.stack([frames[0], frames[1]])
+    img2 = np.stack([frames[1], frames[2]])
 
     batch = make_batch_step(cfg)
     xb, yb, vb = batch(img1, img2, x, y, v)
@@ -50,20 +56,21 @@ def test_batched_step_matches_single(provided_frames):
         np.testing.assert_array_equal(np.asarray(vb[b]), np.asarray(vs))
 
 
-def test_sharded_batch_step(devices8, provided_frames):
+def test_sharded_batch_step(devices8, synthetic_frames):
     """Mesh-sharded batch step executes and matches unsharded results."""
     cfg = klt.TrackingConfig()
     mesh = make_mesh({"data": 4, "feat": 2})
-    ox, oy, ov = load_xyv("select_img0.xyv")
+    frames = synthetic_frames[0]
     n = 64
     b = 8
+    ox, oy, ov = _seeded(frames, n, cfg)
     rng = np.random.RandomState(0)
-    x = np.stack([ox[:n] + rng.uniform(-1, 1, n) for _ in range(b)])
+    x = np.stack([ox + rng.uniform(-1, 1, n) for _ in range(b)])
     x = x.astype(np.float32)
-    y = np.tile(oy[:n], (b, 1)).astype(np.float32)
-    v = np.tile(ov[:n], (b, 1)).astype(np.int32)
-    img1 = np.stack([provided_frames[i % 9] for i in range(b)])
-    img2 = np.stack([provided_frames[i % 9 + 1] for i in range(b)])
+    y = np.tile(oy, (b, 1)).astype(np.float32)
+    v = np.tile(ov, (b, 1)).astype(np.int32)
+    img1 = np.stack([frames[i % 9] for i in range(b)])
+    img2 = np.stack([frames[i % 9 + 1] for i in range(b)])
 
     sharded = make_batch_step(cfg, mesh, feat_axis="feat")
     xs, ys, vs = sharded(img1, img2, x, y, v)
@@ -91,17 +98,17 @@ def test_graft_entry_dryrun(devices8):
     mod.dryrun_multichip(8)
 
 
-def test_batched_sequence_matches_single(provided_frames):
+def test_batched_sequence_matches_single(synthetic_frames):
     """track_sequences_batched must reproduce the single-sequence
-    pipeline exactly (jnp path on CPU)."""
+    pipeline exactly (vmapped XLA path on CPU)."""
     import jax.numpy as jnp
-    from klt_tpu.config import TrackingConfig
-    from klt_tpu.runtime.pipeline import track_sequence
-    from klt_tpu.parallel.batched_lk import track_sequences_batched
-    import klt_tpu as klt
+    from klt.config import TrackingConfig
+    from klt.runtime.pipeline import track_sequence
+    from klt.parallel.batched_lk import track_sequences_batched
+    import klt
 
     cfg = TrackingConfig(sequential_mode=True)
-    frames = np.stack(provided_frames[:4])
+    frames = synthetic_frames[0][:4]
     tracker = klt.KLTracker(cfg)
     fl = klt.FeatureList.create(64)
     tracker.select_good_features(frames[0], fl)
@@ -121,23 +128,20 @@ def test_batched_sequence_matches_single(provided_frames):
 
 
 @pytest.mark.slow
-def test_batched_matches_single_odd_sizes(provided_frames, monkeypatch):
-    """Batched kernel path at awkward (B, F) combos must match the
+def test_batched_matches_single_odd_sizes(synthetic_frames):
+    """Batched path at awkward (B, F) combos must match the
     single-sequence path lane for lane."""
     import jax.numpy as jnp
-    from klt_tpu.config import TrackingConfig
-    from klt_tpu.parallel.batched_lk import track_sequences_batched
-    from klt_tpu.runtime.pipeline import track_sequence
+    from klt.config import TrackingConfig
+    from klt.parallel.batched_lk import track_sequences_batched
+    from klt.runtime.pipeline import track_sequence
 
-    monkeypatch.setenv("KLT_TPU_PALLAS_INTERPRET", "1")
     cfg = TrackingConfig(sequential_mode=True)
-    frames = np.stack(provided_frames[:4])
+    frames = synthetic_frames[0][:4]
     rng = np.random.RandomState(9)
-    # (2, 300): 600 lanes crosses the stall-compaction threshold (512)
-    # so the batched compact tail is exercised too
     for b, n in ((3, 37), (2, 130), (2, 300)):
-        x = rng.uniform(30, 290, (b, n)).astype(np.float32)
-        y = rng.uniform(30, 210, (b, n)).astype(np.float32)
+        x = rng.uniform(20, 140, (b, n)).astype(np.float32)
+        y = rng.uniform(20, 100, (b, n)).astype(np.float32)
         v = np.zeros((b, n), np.int32)
         fb = jnp.asarray(np.broadcast_to(frames, (b,) + frames.shape))
         xs, ys, vs = track_sequences_batched(
@@ -153,119 +157,40 @@ def test_batched_matches_single_odd_sizes(provided_frames, monkeypatch):
                                        np.asarray(rs[0][-1]), atol=1e-4)
 
 
-def test_sequence_canvas_carry_matches_no_carry(provided_frames,
-                                                monkeypatch):
-    """The sequential canvas carry (default-on inside track_sequence's
-    scan) must be bit-identical to carry-FREE per-pair tracking on the
-    kernel path: the carried p1 window is the same image content the
-    extraction would fetch.  This is the only test that pits the carry
-    against a no-carry oracle (everything else compares two
-    carry-enabled runs), so it guards the validity-bound math in
-    _track_level_kernel and lk2's IO1Y/IO1X window shift."""
-    import jax.numpy as jnp
-    from klt_tpu.config import TrackingConfig
-    from klt_tpu.runtime.pipeline import track_sequence
-    from klt_tpu.ops.pyramid import build_pyramid_stacks
-    from klt_tpu.ops.lk import track_features_pyramid_stacks
-    import klt_tpu as klt
-
-    monkeypatch.setenv("KLT_TPU_PALLAS_INTERPRET", "1")
-    cfg = TrackingConfig(sequential_mode=True)
-    frames = np.stack(provided_frames[:4])
-    tracker = klt.KLTracker(cfg)
-    fl = klt.FeatureList.create(64)
-    tracker.select_good_features(frames[0], fl)
-    x = jnp.asarray(fl.x)
-    y = jnp.asarray(fl.y)
-    v = jnp.asarray(fl.val)
-
-    xs, ys, vs = track_sequence(jnp.asarray(frames), x, y, v, cfg)
-
-    sts = [tuple(build_pyramid_stacks(jnp.asarray(f), cfg))
-           for f in frames]
-    cur = (x, y, v)
-    for t in range(frames.shape[0] - 1):
-        xn, yn, vn = track_features_pyramid_stacks(
-            list(sts[t]), list(sts[t + 1]), *cur, cfg)
-        np.testing.assert_array_equal(np.asarray(vs[t]), np.asarray(vn))
-        np.testing.assert_array_equal(np.asarray(xs[t]), np.asarray(xn))
-        np.testing.assert_array_equal(np.asarray(ys[t]), np.asarray(yn))
-        cur = (xn, yn, vn)
-
-
-def test_carry_partial_refresh_bit_exact(provided_frames, monkeypatch):
-    """KLT_TPU_CARRY_REFRESH (refresh only the stale lanes of the
-    carried p1 canvas) must be bit-identical to the all-or-nothing
-    fallback.  Exercised on the replacement scan, where freshly
-    replaced features mark their carry stale EVERY step — the exact
-    case the partial refresh exists for — with n > 128 so the
-    compacted arm engages."""
-    import jax.numpy as jnp
-    from klt_tpu.config import TrackingConfig
-    from klt_tpu.runtime.pipeline import track_sequence_replace
-    import klt_tpu as klt
-
-    monkeypatch.setenv("KLT_TPU_PALLAS_INTERPRET", "1")
-    cfg = TrackingConfig(sequential_mode=True)
-    frames = np.stack(provided_frames[:4])
-    tracker = klt.KLTracker(cfg)
-    fl = klt.FeatureList.create(160)
-    tracker.select_good_features(frames[0], fl)
-    args = (jnp.asarray(frames), jnp.asarray(fl.x), jnp.asarray(fl.y),
-            jnp.asarray(fl.val), cfg)
-
-    monkeypatch.setenv("KLT_TPU_CARRY_REFRESH", "0")
-    base = [np.asarray(a) for a in track_sequence_replace(*args)]
-    monkeypatch.setenv("KLT_TPU_CARRY_REFRESH", "1")
-    out = [np.asarray(a) for a in track_sequence_replace(*args)]
-    for a, r in zip(out, base):
-        np.testing.assert_array_equal(a, r)
-
-
-def test_precomp_pyramid_bit_exact(provided_frames, monkeypatch):
-    """KLT_TPU_PRECOMP_PYR=1 (whole-chunk pyramid stacks built ahead of
+def test_precomp_pyramid_bit_exact(synthetic_frames, monkeypatch):
+    """KLT_PRECOMP_PYR=1 (whole-chunk pyramid stacks built ahead of
     the scan, fed via scan xs) must be bit-identical to the per-step
     build — it is the same stacks in the same per-step program."""
     import jax.numpy as jnp
-    from klt_tpu.config import TrackingConfig
-    from klt_tpu.parallel.batched_lk import track_sequences_batched
+    from klt.config import TrackingConfig
+    from klt.parallel.batched_lk import track_sequences_batched
 
-    monkeypatch.setenv("KLT_TPU_PALLAS_INTERPRET", "1")
     cfg = TrackingConfig(sequential_mode=True)
-    frames = np.stack(provided_frames[:4])
-    # force the vmapped single-image builder for BOTH paths: interpret
-    # mode inlines the Pallas kernel into the surrounding XLA:CPU
-    # program, whose conv-chain rounding is context/shape-dependent at
-    # the last bit, so the chunked batched builder cannot be
-    # bit-stable across per-step vs precomp contexts HERE.  On the
-    # real chip the batched builder is bit-equal to the single-image
-    # kernel (measured, tools/check_batched_pyr.py).
-    from klt_tpu.pallas import pyramid as pp
-    monkeypatch.setattr(pp, "supported_batched", lambda *_: False)
+    frames = synthetic_frames[0][:4]
     rng = np.random.RandomState(3)
     b, n = 2, 96
-    x = rng.uniform(30, 290, (b, n)).astype(np.float32)
-    y = rng.uniform(30, 210, (b, n)).astype(np.float32)
+    x = rng.uniform(20, 140, (b, n)).astype(np.float32)
+    y = rng.uniform(20, 100, (b, n)).astype(np.float32)
     v = np.zeros((b, n), np.int32)
     fb = jnp.asarray(np.broadcast_to(frames, (b,) + frames.shape))
     args = (fb, jnp.asarray(x), jnp.asarray(y), jnp.asarray(v), cfg)
 
-    monkeypatch.delenv("KLT_TPU_PRECOMP_PYR", raising=False)
+    monkeypatch.delenv("KLT_PRECOMP_PYR", raising=False)
     base = [np.asarray(a) for a in track_sequences_batched(*args)]
-    monkeypatch.setenv("KLT_TPU_PRECOMP_PYR", "1")
+    monkeypatch.setenv("KLT_PRECOMP_PYR", "1")
     pre = [np.asarray(a) for a in track_sequences_batched(*args)]
     for a, r in zip(pre, base):
         np.testing.assert_array_equal(a, r)
 
     # single-sequence drivers share the knob
-    from klt_tpu.runtime.pipeline import (track_sequence,
+    from klt.runtime.pipeline import (track_sequence,
                                           track_sequence_replace)
     sargs = (fb[0], jnp.asarray(x[0]), jnp.asarray(y[0]),
              jnp.asarray(v[0]), cfg)
     for fn in (track_sequence, track_sequence_replace):
-        monkeypatch.setenv("KLT_TPU_PRECOMP_PYR", "1")
+        monkeypatch.setenv("KLT_PRECOMP_PYR", "1")
         pre = [np.asarray(a) for a in fn(*sargs)]
-        monkeypatch.delenv("KLT_TPU_PRECOMP_PYR")
+        monkeypatch.delenv("KLT_PRECOMP_PYR")
         base = [np.asarray(a) for a in fn(*sargs)]
         for a, r in zip(pre, base):
             np.testing.assert_array_equal(a, r)
@@ -310,7 +235,7 @@ def test_multihost_two_process():
         assert "MULTIHOST OK" in out, out[-3000:]
 
 
-def test_batched_affine_matches_single(provided_frames):
+def test_batched_affine_matches_single(synthetic_frames):
     """track_sequences_affine_batched over B distinct sequences must
     reproduce each sequence's single-stream track_sequence_affine
     result: identical statuses, positions within 1e-3 px (XLA tiles
@@ -318,9 +243,9 @@ def test_batched_affine_matches_single(provided_frames):
     single-ulp position differences are expected, bit-equality is
     not)."""
     import jax.numpy as jnp
-    from klt_tpu.config import TrackingConfig
-    from klt_tpu.runtime.pipeline import track_sequence_affine
-    from klt_tpu.parallel.batched_affine import (
+    from klt.config import TrackingConfig
+    from klt.runtime.pipeline import track_sequence_affine
+    from klt.parallel.batched_affine import (
         track_sequences_affine_batched)
 
     cfg = TrackingConfig(sequential_mode=True,
@@ -329,7 +254,7 @@ def test_batched_affine_matches_single(provided_frames):
     n = 48
     seqs, xs0, ys0, vs0 = [], [], [], []
     for s in starts:
-        fr = np.stack(provided_frames[s:s + 4])
+        fr = synthetic_frames[0][s:s + 4]
         tr = klt.KLTracker(cfg)
         fl = klt.FeatureList.create(n)
         tr.select_good_features(fr[0], fl)

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-import klt_tpu as klt
-from klt_tpu import native
+import klt
+from klt import native
 from conftest import load_xyv
 
 
@@ -58,7 +58,7 @@ def test_exact_conv_bit_matches_reference(provided_frames):
     """The exact host chain reproduces the C-dumped smoothing/gradient
     fixtures BIT-for-bit (not just within tolerance): same f32
     accumulation order as src/V1/convolve.c:137-242."""
-    from klt_tpu.ops.exact_select import (smoothed_image_exact,
+    from klt.ops.exact_select import (smoothed_image_exact,
                                           gradients_exact)
     from conftest import load_f32
     cfg = klt.TrackingConfig()
@@ -79,7 +79,7 @@ def test_exact_select_laptops_seed_matches_reference_table():
     import os
     import pytest
     from conftest import REF_DATA, fixture_path
-    from klt_tpu.io.features_io import read_feature_table
+    from klt.io.features_io import read_feature_table
     img_path = os.path.join(REF_DATA, "images_laptops", "img1.pgm")
     if not os.path.exists(img_path):
         pytest.skip("images_laptops dataset not available")
@@ -124,7 +124,7 @@ def test_prefilter_candidates_subset_and_audit(provided_frames,
     certifies exactness or falls back — producing the full path's
     result either way."""
     import jax.numpy as jnp
-    from klt_tpu.ops.selection import (candidate_points,
+    from klt.ops.selection import (candidate_points,
                                        candidate_points_topk)
 
     cfg = klt.TrackingConfig()
@@ -144,11 +144,11 @@ def test_prefilter_candidates_subset_and_audit(provided_frames,
 
     # the opt-in prefiltered path must equal the full path exactly
     # (via certification or fallback)
-    monkeypatch.setenv("KLT_TPU_PREFILTER", "1")
+    monkeypatch.setenv("KLT_PREFILTER", "1")
     fl_a = klt.FeatureList.create(150)
     tr_a = klt.KLTracker(cfg)
     tr_a.select_good_features(img, fl_a)
-    monkeypatch.delenv("KLT_TPU_PREFILTER")
+    monkeypatch.delenv("KLT_PREFILTER")
     fl_b = klt.FeatureList.create(150)
     tr_b = klt.KLTracker(cfg)
     tr_b.select_good_features(img, fl_b)
@@ -163,8 +163,8 @@ def test_prefilter_audit_certifies_replacement():
     either below it or covered by existing/added features, so the audit
     must certify (no fallback) and match the full path."""
     import os
-    import klt_tpu.runtime.tracker as T
-    from klt_tpu.config import TrackingConfig
+    import klt.runtime.tracker as T
+    from klt.config import TrackingConfig
 
     rng = np.random.RandomState(11)
     img = rng.randint(98, 102, (120, 160)).astype(np.uint8)
@@ -191,25 +191,25 @@ def test_prefilter_audit_certifies_replacement():
         calls["ok" if r else "fb"] += 1
         return r
 
-    os.environ["KLT_TPU_PREFILTER"] = "1"
+    os.environ["KLT_PREFILTER"] = "1"
     T.KLTracker._suppress_prefiltered = wrap
     try:
         tr, fl = select_then_lose()
         tr.replace_lost_features(img, fl)
     finally:
         T.KLTracker._suppress_prefiltered = orig
-        os.environ.pop("KLT_TPU_PREFILTER")
+        os.environ.pop("KLT_PREFILTER")
     # the initial (deep) selection may fall back; the replacement call
     # must certify
     assert calls["ok"] >= 1
     assert (fl.val >= 0).sum() == 4
 
-    os.environ["KLT_TPU_NO_PREFILTER"] = "1"
+    os.environ["KLT_NO_PREFILTER"] = "1"
     try:
         tr2, fl2 = select_then_lose()
         tr2.replace_lost_features(img, fl2)
     finally:
-        os.environ.pop("KLT_TPU_NO_PREFILTER")
+        os.environ.pop("KLT_NO_PREFILTER")
     np.testing.assert_array_equal(fl.x, fl2.x)
     np.testing.assert_array_equal(fl.val, fl2.val)
 
@@ -220,8 +220,8 @@ def test_device_replace_exhaustion_and_floor():
     (-1, -1) — the reference's pointlist-exhausted branch
     (src/V1/selectGoodFeatures.c:180-195)."""
     import jax.numpy as jnp
-    from klt_tpu.config import TrackingConfig, NOT_FOUND
-    from klt_tpu.ops.replace import replace_lost_features_device
+    from klt.config import TrackingConfig, NOT_FOUND
+    from klt.ops.replace import replace_lost_features_device
 
     cfg = TrackingConfig(min_eigenvalue=10 ** 6)  # nothing qualifies
     h, w = 64, 96

@@ -6,9 +6,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from klt_tpu.slam import (tracks_from_table, select_keyframes,
+from klt.slam import (tracks_from_table, select_keyframes,
                           BAProblem, bundle_adjust)
-from klt_tpu.slam.geometry import so3_exp, se3_apply, project
+from klt.slam.geometry import so3_exp, se3_apply, project
 
 
 def _synthetic_problem(rng, n_pose=4, n_lm=60, noise=0.0,
@@ -93,8 +93,8 @@ def test_ba_gated_rejects_outlier_spike():
     while keeping the clean ones, and (c) land the inlier RMS at the
     noise floor."""
     import dataclasses
-    from klt_tpu.slam import bundle_adjust_gated
-    from klt_tpu.slam.ba import _residual_norms
+    from klt.slam import bundle_adjust_gated
+    from klt.slam.ba import _residual_norms
 
     rng = np.random.RandomState(7)
     prob, R_true, t_true, lm_true = _synthetic_problem(
@@ -129,7 +129,7 @@ def test_ba_gated_rejects_outlier_spike():
 def test_ba_sharded_matches_single():
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from klt_tpu.parallel.mesh import make_mesh
+    from klt.parallel.mesh import make_mesh
     rng = np.random.RandomState(1)
     prob, *_ = _synthetic_problem(rng, n_pose=3, n_lm=40, noise=0.2)
     mesh = make_mesh({"data": 8})
@@ -142,8 +142,8 @@ def test_ba_sharded_matches_single():
 
 
 def _synthetic_pose_graph(rng, n_pose=6, noise=0.01):
-    from klt_tpu.slam.geometry import so3_exp
-    from klt_tpu.slam.pose_graph import PoseGraph
+    from klt.slam.geometry import so3_exp
+    from klt.slam.pose_graph import PoseGraph
     R_true, t_true = [], []
     for p in range(n_pose):
         w = rng.randn(3).astype(np.float32) * 0.1
@@ -179,7 +179,7 @@ def _synthetic_pose_graph(rng, n_pose=6, noise=0.01):
 
 
 def test_pose_graph_converges():
-    from klt_tpu.slam.pose_graph import optimize_pose_graph
+    from klt.slam.pose_graph import optimize_pose_graph
     rng = np.random.RandomState(5)
     pg, R_true, t_true = _synthetic_pose_graph(rng, noise=0.0)
     R, t, costs = optimize_pose_graph(pg, iterations=15)
@@ -191,10 +191,10 @@ def test_pose_graph_converges():
 
 
 def test_pose_graph_sharded_matches():
-    from klt_tpu.slam.pose_graph import optimize_pose_graph
+    from klt.slam.pose_graph import optimize_pose_graph
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from klt_tpu.parallel.mesh import make_mesh
+    from klt.parallel.mesh import make_mesh
     rng = np.random.RandomState(6)
     pg, *_ = _synthetic_pose_graph(rng, n_pose=5, noise=0.02)
     mesh = make_mesh({"data": 8})
@@ -207,7 +207,7 @@ def test_pose_graph_sharded_matches():
 def test_ba_cg_matches_dense():
     """Matrix-free Schur/CG step must match the dense Schur solver on
     a problem small enough for both."""
-    from klt_tpu.slam import bundle_adjust_cg
+    from klt.slam import bundle_adjust_cg
     rng = np.random.RandomState(2)
     prob, R_true, t_true, lm_true = _synthetic_problem(rng)
     Rd, td, lmd, cd = bundle_adjust(prob, iterations=10, damping=1e-4)
@@ -225,8 +225,8 @@ def test_ba_cg_matches_dense():
 def test_ba_cg_sharded_matches_single():
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from klt_tpu.parallel.mesh import make_mesh
-    from klt_tpu.slam import bundle_adjust_cg
+    from klt.parallel.mesh import make_mesh
+    from klt.slam import bundle_adjust_cg
     rng = np.random.RandomState(3)
     prob, *_ = _synthetic_problem(rng, n_pose=3, n_lm=40, noise=0.2)
     mesh = make_mesh({"data": 8})
@@ -246,9 +246,9 @@ def test_ba_cg_large_scale_sharded():
     per mesh step; the CG path streams it.)"""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from klt_tpu.parallel.mesh import make_mesh
-    from klt_tpu.slam import bundle_adjust_cg
-    from klt_tpu.slam.geometry import so3_exp, project
+    from klt.parallel.mesh import make_mesh
+    from klt.slam import bundle_adjust_cg
+    from klt.slam.geometry import so3_exp, project
 
     rng = np.random.RandomState(4)
     n_pose, n_lm, obs_per_lm = 200, 20000, 4
@@ -288,7 +288,7 @@ def test_ba_cg_large_scale_sharded():
 
 def test_pose_graph_cg_matches_dense():
     """Matrix-free edge-list CG vs the dense H solve."""
-    from klt_tpu.slam.pose_graph import optimize_pose_graph
+    from klt.slam.pose_graph import optimize_pose_graph
     rng = np.random.RandomState(5)
     pg, *_ = _synthetic_pose_graph(rng, n_pose=8, noise=0.02)
     Rd, td, cd = optimize_pose_graph(pg, iterations=8, solver="dense")
@@ -306,9 +306,9 @@ def test_pose_graph_cg_sharded_large():
     [800,6,800,6] = 92 MB via 640k segments)."""
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from klt_tpu.parallel.mesh import make_mesh
-    from klt_tpu.slam.pose_graph import optimize_pose_graph, PoseGraph
-    from klt_tpu.slam.geometry import so3_exp
+    from klt.parallel.mesh import make_mesh
+    from klt.slam.pose_graph import optimize_pose_graph, PoseGraph
+    from klt.slam.geometry import so3_exp
 
     rng = np.random.RandomState(6)
     n = 800
@@ -368,8 +368,8 @@ def test_keyframe_pose_graph_init_recovers_translation():
     """frontend.keyframe_pose_graph_init: tiny pairwise BAs ->
     pose-graph chain must recover a synthetic forward-translating
     trajectory's direction (monocular scale is arbitrary)."""
-    from klt_tpu.slam.frontend import keyframe_pose_graph_init
-    from klt_tpu.slam.geometry import project
+    from klt.slam.frontend import keyframe_pose_graph_init
+    from klt.slam.geometry import project
 
     rng = np.random.RandomState(7)
     fx = fy = 300.0

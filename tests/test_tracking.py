@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-import klt_tpu as klt
-from klt_tpu.io.features_io import read_feature_table
+import klt
+from klt.io.features_io import read_feature_table
 from conftest import load_xyv, fixture_path, REF_GOLDEN
 
 
@@ -125,7 +125,7 @@ def test_device_replacement_matches_host(provided_frames):
     host native path (sort + suppression) wherever values are
     tie-free."""
     import jax.numpy as jnp
-    from klt_tpu.ops.replace import replace_lost_features_device
+    from klt.ops.replace import replace_lost_features_device
 
     cfg = klt.TrackingConfig(sequential_mode=True)
     tr = klt.KLTracker(cfg)
@@ -151,7 +151,7 @@ def test_replace_scan_matches_host_loop(provided_frames):
     """track_sequence_replace (in-scan device replacement) vs the
     KLTracker host loop over the golden 10-frame sequence."""
     import jax.numpy as jnp
-    from klt_tpu.runtime.pipeline import track_sequence_replace
+    from klt.runtime.pipeline import track_sequence_replace
 
     cfg = klt.TrackingConfig(sequential_mode=True)
     ft = _run_sequence(provided_frames, cfg, replace=True)
@@ -180,11 +180,10 @@ def test_exact_driver_bitexact_provided(provided_frames):
     replacement, host tie repair) must reproduce the reference CPU
     tracker's replacement run on images_provided: statuses AND picks
     (val columns carry the integer pick responses) exactly, positions
-    to within ulps.  On TPU the positions are bit-identical too
-    (measured: 0 bit mismatches over the full 551-frame traffic run);
-    this CPU-backend test tolerates ulps because XLA:CPU's conv-chain
-    codegen is shape/value-dependent at the last bit."""
-    from klt_tpu.runtime.pipeline import track_sequence_replace_exact
+    to within ulps.  This CPU-backend test tolerates ulps because
+    XLA:CPU's conv-chain codegen is shape/value-dependent at the last
+    bit."""
+    from klt.runtime.pipeline import track_sequence_replace_exact
 
     cfg = klt.TrackingConfig(sequential_mode=True)
     tr = klt.KLTracker(cfg)
@@ -197,8 +196,7 @@ def test_exact_driver_bitexact_provided(provided_frames):
     for t in range(9):
         np.testing.assert_array_equal(vs[t], oracle.val[:, t])
         # XLA:CPU's ulp-level conv differences amplify through the
-        # Newton iterations (measured up to ~0.01 px by frame 7); on
-        # TPU the positions are bit-equal
+        # Newton iterations (up to ~0.01 px by frame 7)
         np.testing.assert_allclose(xs[t], oracle.x[:, t],
                                    atol=0.05, rtol=0)
         np.testing.assert_allclose(ys[t], oracle.y[:, t],
@@ -207,12 +205,10 @@ def test_exact_driver_bitexact_provided(provided_frames):
 
 @pytest.mark.slow
 def test_traffic_replace_exact_bitparity_50frames():
-    """VERDICT r5 item 2 regression pin: the bit-exact driver over a
-    50-frame traffic window must match the reference table — statuses
-    and picks exactly, positions to ulps on this CPU backend
-    (full-551-frame measurement on the real chip: status agreement
-    1.0, drift p99 0.0 px bit-identical, same_detection_frac 1.0)."""
-    from klt_tpu.runtime.pipeline import track_sequence_replace_exact
+    """Regression pin: the bit-exact driver over a 50-frame traffic
+    window must match the reference table: statuses and picks exactly,
+    positions to ulps on this CPU backend."""
+    from klt.runtime.pipeline import track_sequence_replace_exact
 
     frames = _dataset_frames("images_traffic", 1, 52)
     cfg = klt.TrackingConfig(sequential_mode=True)
@@ -223,7 +219,7 @@ def test_traffic_replace_exact_bitparity_50frames():
     np.testing.assert_array_equal(fl.x, oracle.x[:, 0])  # exact seed
     xs, ys, vs = track_sequence_replace_exact(
         frames, fl.x, fl.y, fl.val.astype(np.int32), cfg)
-    from klt_tpu.utils.parity import table_parity_stats
+    from klt.utils.parity import table_parity_stats
     xr = np.concatenate([fl.x[:, None], xs.T], 1)
     yr = np.concatenate([fl.y[:, None], ys.T], 1)
     vr = np.concatenate([fl.val[:, None], vs.T], 1)
@@ -231,8 +227,7 @@ def test_traffic_replace_exact_bitparity_50frames():
     st = table_parity_stats(xr, yr, vr, oracle.x[:, :t_max],
                             oracle.y[:, :t_max], oracle.val[:, :t_max])
     # XLA:CPU ulp noise amplifies through the Newton loop, so the CPU
-    # thresholds leave headroom; the chip measurement is exact (1.0 /
-    # 1.0 / drift 0.0)
+    # thresholds leave headroom
     assert st["status_agreement"] >= 0.99, st
     assert st["same_detection_frac"] >= 0.98, st
     assert st["within_half_px"] >= 0.98, st
@@ -247,12 +242,12 @@ def test_affine_sequence(provided_frames):
 
 
 def test_affine_compaction_bit_exact(provided_frames, monkeypatch):
-    """The active-lane compaction (KLT_TPU_AFFINE_COMPACT) must be a
+    """The active-lane compaction (KLT_AFFINE_COMPACT) must be a
     pure permutation-and-back: every loop op is lane-independent, so
     the compacted while_loop returns bit-identical state."""
     import jax.numpy as jnp
-    from klt_tpu.ops import affine as aff
-    from klt_tpu.ops.pyramid import build_pyramid_stacks
+    from klt.ops import affine as aff
+    from klt.ops.pyramid import build_pyramid_stacks
 
     cfg = klt.TrackingConfig(sequential_mode=True,
                              affine_consistency_check=2)
@@ -298,12 +293,12 @@ def test_affine_compaction_bit_exact(provided_frames, monkeypatch):
 
 def test_affine_resident_ds_backend_bit_exact(provided_frames,
                                               monkeypatch):
-    """The dynamic-slice resident-patch backend (KLT_TPU_AFFINE_RESIDENT
+    """The dynamic-slice resident-patch backend (KLT_AFFINE_RESIDENT
     =ds) must match the one-hot channel-band backend bit-for-bit: both
     produce integer-aligned copies of the same image rows/columns."""
     import jax.numpy as jnp
-    from klt_tpu.ops import affine as aff
-    from klt_tpu.ops.pyramid import build_pyramid_stacks
+    from klt.ops import affine as aff
+    from klt.ops.pyramid import build_pyramid_stacks
 
     cfg = klt.TrackingConfig(sequential_mode=True,
                              affine_consistency_check=2)
@@ -366,52 +361,56 @@ def test_lighting_affine_sequence(provided_frames):
     _compare_tables(ft, oracle, max_drift=0.5, min_status_agree=130)
 
 
-def test_sequential_matches_nonsequential(provided_frames):
+def test_sequential_matches_nonsequential(synthetic_frames):
     """Sequential-mode pyramid caching must not change results."""
-    fl_a = _seed_from_oracle()
+    frames = synthetic_frames[0]
+    seed = klt.FeatureList.create(60)
+    klt.KLTracker(klt.TrackingConfig()).select_good_features(frames[0],
+                                                             seed)
+    fl_a = seed.copy()
     tr_a = klt.KLTracker(klt.TrackingConfig(sequential_mode=True))
-    tr_a.track_features(provided_frames[0], provided_frames[1], fl_a)
-    tr_a.track_features(provided_frames[1], provided_frames[2], fl_a)
+    tr_a.track_features(frames[0], frames[1], fl_a)
+    tr_a.track_features(frames[1], frames[2], fl_a)
 
-    fl_b = _seed_from_oracle()
+    fl_b = seed.copy()
     tr_b = klt.KLTracker(klt.TrackingConfig())
-    tr_b.track_features(provided_frames[0], provided_frames[1], fl_b)
-    tr_b.track_features(provided_frames[1], provided_frames[2], fl_b)
+    tr_b.track_features(frames[0], frames[1], fl_b)
+    tr_b.track_features(frames[1], frames[2], fl_b)
 
     np.testing.assert_array_equal(fl_a.val, fl_b.val)
     np.testing.assert_allclose(fl_a.x, fl_b.x, atol=1e-4)
     np.testing.assert_allclose(fl_a.y, fl_b.y, atol=1e-4)
 
 
-def test_tiny_coarsest_level_all_oob(provided_frames):
+def test_tiny_coarsest_level_all_oob(synthetic_frames):
     """search_range=60 derives a 3-level subsampling-8 pyramid whose
-    coarsest level (3x5 px) cannot fit the tracking window: every
-    feature must die OOB (the reference's first _window_oob check fails
-    for all positions), not crash."""
+    coarsest level (1x2 px at 160x120) cannot fit the tracking window:
+    every feature must die OOB (the reference's first _window_oob check
+    fails for all positions), not crash."""
     import jax.numpy as jnp
-    from klt_tpu.config import TrackingConfig, OOB
-    from klt_tpu.runtime.pipeline import track_sequence
+    from klt.config import TrackingConfig, OOB
+    from klt.runtime.pipeline import track_sequence
 
     cfg = TrackingConfig(sequential_mode=True, search_range=60)
     assert cfg.n_pyramid_levels == 3 and cfg.subsampling == 8
-    frames = np.stack(provided_frames[:3])
+    frames = synthetic_frames[0][:3]
     n = 16
-    x = jnp.linspace(100.0, 200.0, n).astype(jnp.float32)
-    y = jnp.linspace(80.0, 150.0, n).astype(jnp.float32)
+    x = jnp.linspace(40.0, 120.0, n).astype(jnp.float32)
+    y = jnp.linspace(30.0, 90.0, n).astype(jnp.float32)
     v = jnp.zeros(n, jnp.int32)
     xs, ys, vs = track_sequence(jnp.asarray(frames), x, y, v, cfg)
     assert (np.asarray(vs[0]) == OOB).all()
 
 
-def test_affine_scan_matches_tracker(provided_frames):
+def test_affine_scan_matches_tracker(synthetic_frames):
     """track_sequence_affine (scan-resident affine state) must match
     the per-pair KLTracker affine flow."""
     import jax.numpy as jnp
-    from klt_tpu.config import TrackingConfig
-    from klt_tpu.runtime.pipeline import track_sequence_affine
+    from klt.config import TrackingConfig
+    from klt.runtime.pipeline import track_sequence_affine
 
     cfg = TrackingConfig(sequential_mode=True, affine_consistency_check=2)
-    frames = np.stack(provided_frames[:4])
+    frames = synthetic_frames[0][:4]
     tracker = klt.KLTracker(cfg)
     fl = klt.FeatureList.create(48)
     tracker.select_good_features(frames[0], fl)
@@ -433,15 +432,15 @@ def test_affine_scan_matches_tracker(provided_frames):
                                    atol=1e-3)
 
 
-def test_stream_matches_track_sequence(provided_frames):
+def test_stream_matches_track_sequence(synthetic_frames):
     """Chunked streaming must match the single-scan pipeline."""
     import jax.numpy as jnp
-    from klt_tpu.config import TrackingConfig
-    from klt_tpu.runtime.pipeline import (track_sequence,
+    from klt.config import TrackingConfig
+    from klt.runtime.pipeline import (track_sequence,
                                           track_sequence_stream)
 
     cfg = TrackingConfig(sequential_mode=True)
-    frames = np.stack(provided_frames[:7])
+    frames = synthetic_frames[0][:7]
     tracker = klt.KLTracker(cfg)
     fl = klt.FeatureList.create(48)
     tracker.select_good_features(frames[0], fl)
@@ -459,28 +458,54 @@ def test_stream_matches_track_sequence(provided_frames):
     np.testing.assert_array_equal(y, np.asarray(ref[1][-1]))
 
 
-def test_debug_checks_warn(provided_frames, monkeypatch):
-    """KLT_TPU_DEBUG=1 activates the reference's assert set as
+def test_debug_checks_warn(synthetic_frames, monkeypatch):
+    """KLT_DEBUG=1 activates the reference's assert set as
     warnings (src/V1/trackFeatures.c:51 in-bounds check analogue)."""
     import warnings
     import jax.numpy as jnp
-    from klt_tpu.config import TrackingConfig
-    from klt_tpu.errors import KLTWarningCategory
-    from klt_tpu.parallel.batch import make_pair_step
+    from klt.config import TrackingConfig
+    from klt.errors import KLTWarningCategory
+    from klt.parallel.batch import make_pair_step
 
-    monkeypatch.setenv("KLT_TPU_DEBUG", "1")
+    monkeypatch.setenv("KLT_DEBUG", "1")
     cfg = TrackingConfig()
     step = make_pair_step(cfg)
-    img = jnp.asarray(provided_frames[0])
+    frames = synthetic_frames[0]
+    img = jnp.asarray(frames[0])
     x = jnp.asarray([5000.0, 50.0], jnp.float32)  # one out of bounds
     y = jnp.asarray([50.0, 50.0], jnp.float32)
     v = jnp.zeros(2, jnp.int32)
     with warnings.catch_warnings(record=True) as rec:
         warnings.simplefilter("always")
-        out = step(img, jnp.asarray(provided_frames[1]), x, y, v)
+        out = step(img, jnp.asarray(frames[1]), x, y, v)
         import jax
         jax.block_until_ready(out)
     assert any(issubclass(w.category, KLTWarningCategory) for w in rec)
+
+
+def test_track_sequence_recovers_known_shifts(synthetic_frames):
+    """track_sequence on a seeded 160x120 sequence: each step's tracked
+    displacement matches the generator's sub-pixel translation."""
+    import jax.numpy as jnp
+    from klt.runtime.pipeline import track_sequence
+
+    frames, motion = synthetic_frames
+    cfg = klt.TrackingConfig(sequential_mode=True)
+    fl = klt.FeatureList.create(60)
+    klt.KLTracker(cfg).select_good_features(frames[0], fl)
+    xs, ys, vs = (np.asarray(a) for a in track_sequence(
+        jnp.asarray(frames), jnp.asarray(fl.x), jnp.asarray(fl.y),
+        jnp.asarray(fl.val), cfg))
+    X = np.concatenate([fl.x[None], xs])
+    Y = np.concatenate([fl.y[None], ys])
+    V = np.concatenate([fl.val[None], vs])
+    ok = (V[1:] == 0) & (V[:-1] >= 0)
+    dm = np.diff(motion, axis=0)
+    err = np.hypot(np.diff(X, axis=0) - dm[:, :1],
+                   np.diff(Y, axis=0) - dm[:, 1:])[ok]
+    assert ok.sum() >= 0.7 * ok.size
+    assert np.median(err) <= 0.05
+    assert np.percentile(err, 90) <= 0.15
 
 
 def _dataset_frames(name, lo, hi):
@@ -500,7 +525,7 @@ def test_laptops_affine_first50_parity_contract():
     within-0.5px — thresholds leave margin for FP-chaotic kill flips.)"""
     import jax
     import jax.numpy as jnp
-    from klt_tpu.runtime.pipeline import track_sequence_affine
+    from klt.runtime.pipeline import track_sequence_affine
     frames = _dataset_frames("images_laptops", 1, 52)
     cfg = klt.TrackingConfig(sequential_mode=True,
                              affine_consistency_check=2,
@@ -536,7 +561,7 @@ def test_traffic_replace_full_parity_contract():
     frames (was only visible in truncation-prone bench output)."""
     import jax
     import jax.numpy as jnp
-    from klt_tpu.runtime.pipeline import track_sequence_replace
+    from klt.runtime.pipeline import track_sequence_replace
     frames = _dataset_frames("images_traffic", 1, 552)
     cfg = klt.TrackingConfig(sequential_mode=True)
     tr = klt.KLTracker(cfg)
@@ -547,7 +572,7 @@ def test_traffic_replace_full_parity_contract():
     xs, ys, vs = track_sequence_replace(
         jnp.asarray(frames), jnp.asarray(fl.x), jnp.asarray(fl.y),
         jnp.asarray(fl.val), cfg)
-    from klt_tpu.utils.parity import table_parity_stats
+    from klt.utils.parity import table_parity_stats
     xr = np.concatenate([fl.x[:, None], np.asarray(xs).T], 1)
     yr = np.concatenate([fl.y[:, None], np.asarray(ys).T], 1)
     vr = np.concatenate([fl.val[:, None], np.asarray(vs).T], 1)
@@ -558,7 +583,7 @@ def test_traffic_replace_full_parity_contract():
     # feature (exact response tie / one-count device-response skew),
     # after which that slot's positions measure nothing — the drift
     # contract therefore binds on SAME-DETECTION entries (see
-    # klt_tpu/utils/parity.py).  Measured r4 on chip: agreement 1.0,
+    # klt/utils/parity.py).  Measured r4 on chip: agreement 1.0,
     # same-detection within-0.5px 1.0 (p99 drift 0.019 px),
     # same-detection coverage 0.51 over the full 551 frames.
     assert st["status_agreement"] >= 0.97, st

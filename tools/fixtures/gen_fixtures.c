@@ -1,4 +1,4 @@
-/* Fixture generator for the TPU-native KLT framework test suite.
+/* Fixture generator for the KLT framework test suite.
  *
  * This driver links against a scratch build of the reference CPU
  * implementation (FatimaSohailll/KLT-Feature-Tracker-Acceleration-GPUs,

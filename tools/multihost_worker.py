@@ -32,7 +32,7 @@ def main():
     port, pid, nproc = (int(a) for a in sys.argv[1:4])
 
     import jax
-    from klt_tpu.parallel.distributed import (initialize_multihost,
+    from klt.parallel.distributed import (initialize_multihost,
                                               global_data_mesh,
                                               process_local_batch)
     initialize_multihost(f"localhost:{port}", nproc, pid)
@@ -44,8 +44,8 @@ def main():
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
     from jax.experimental import multihost_utils
-    import klt_tpu as klt
-    from klt_tpu.parallel.batch import make_batch_step
+    import klt
+    from klt.parallel.batch import make_batch_step
 
     klt.set_verbosity(0)
     cfg = klt.TrackingConfig()
@@ -93,7 +93,7 @@ def main():
     np.testing.assert_allclose(ys, ry, atol=1e-5)
 
     # ---- BA psum over the same global mesh (obs-sharded) ----
-    from klt_tpu.slam.ba import BAProblem, bundle_adjust
+    from klt.slam.ba import BAProblem, bundle_adjust
     n_pose, n_lm, m = 4, 24, 96
     rng = np.random.RandomState(1)
     lm = np.concatenate([rng.uniform(-1, 1, (n_lm, 2)),

@@ -18,10 +18,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 import jax
 import jax.numpy as jnp
 
-import klt_tpu as klt
-from klt_tpu.config import TrackingConfig
-from klt_tpu.ops.pyramid import build_image_pyramids
-from klt_tpu.ops.lk import track_features_pyramid, track_level
+import klt
+from klt.config import TrackingConfig
+from klt.ops.pyramid import build_image_pyramids
+from klt.ops.lk import track_features_pyramid, track_level
 
 
 def timed(fn, *args, reps=3):
